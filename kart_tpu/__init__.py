@@ -1,28 +1,39 @@
-"""kart-tpu: a TPU-native NGS read aligner with the capabilities of Kart.
+"""kart-tpu: a JAX NGS read aligner with the capabilities of Kart.
 
-Built from scratch for JAX/XLA/Pallas on TPU; see SURVEY.md for the layer
-map of the reference aligner this reimplements.
+Device seeding runs through JAX/XLA; the post-seeding pipeline is native
+C++.  See SURVEY.md for the layer map of the reference aligner this
+reimplements.
 """
 
 __version__ = "0.1.0"
 
 import os as _os
 
+# the compile cache's fixed home inside the checkout (gitignored): a cache
+# directory that moves between runs never hits
+REPO_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compilation_cache_dir(environ=_os.environ) -> str | None:
+    """The directory this package points JAX's persistent compilation cache
+    at, or None when JAX_COMPILATION_CACHE_DIR is set (JAX reads that
+    variable itself and the package then sets nothing)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return REPO_CACHE_DIR
+
 
 def _setup_jax_cache():
-    """Persistent XLA compilation cache so repeated CLI runs skip the
-    ~1 min TPU compile of the seeding kernels."""
-    try:
-        import jax
+    """Persistent XLA compilation cache so repeated runs skip recompiling
+    the seeding kernels."""
+    cache_dir = compilation_cache_dir()
+    if cache_dir is None:
+        return
+    import jax
 
-        cache_dir = _os.environ.get(
-            "KART_TPU_JAX_CACHE", _os.path.expanduser("~/.cache/kart_tpu_jax")
-        )
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
 
 
 _setup_jax_cache()

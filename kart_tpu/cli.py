@@ -16,7 +16,7 @@ VERSION = "2.5.6"  # behavior-parity version of the reference CLI
 
 
 def usage(prog: str) -> None:
-    print(f"kart-tpu v{VERSION} (TPU-native reimplementation of Kart)\n")
+    print(f"kart-tpu v{VERSION} (JAX reimplementation of Kart)\n")
     print(
         f"Usage: {prog} -i Index_Prefix -f <ReadFile_A1 ReadFile_B1 ...>"
         " [-f2 <ReadFile_A2 ReadFile_B2 ...>] -o Output\n"
@@ -30,9 +30,9 @@ def usage(prog: str) -> None:
     print("         -g INT        max gaps (indels) [5]")
     print("         -p            paired-end reads are interlaced in the same file")
     print("         -pacbio       pacbio data")
-    print("         -cpu          force the host (no-TPU) mapping path")
+    print("         -cpu          map on the host only (no accelerator)")
     print("         -idx-shards N shard the FM-index over N mesh devices")
-    print("                       (for indexes too big for one chip's HBM)")
+    print("                       (for indexes too big for one device's memory)")
     print("         -v            version\n")
 
 

@@ -105,7 +105,7 @@ def build_index(fasta_path: str, prefix: str, verbose: bool = True) -> None:
     write_pac(prefix, fwd)
     write_ann_amb(prefix, l_pac, list(zip(seqs, n_ambs)), holes, seed=11)
 
-    # TPU sidecar: full suffix array (our own extension).  sa_full[k] equals
+    # .saf sidecar: full suffix array (our own extension).  sa_full[k] equals
     # bwt_sa(k) for every BWT row k >= 1, turning suffix-array resolution on
     # device into a single gather instead of an unbounded inverse-Psi walk.
     dtype = np.int32 if seq_len < 2**31 else np.int64

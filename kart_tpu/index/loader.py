@@ -1,13 +1,13 @@
-"""Runtime genome index: host-side tables + TPU-layout arrays.
+"""Runtime genome index: host-side tables + device-layout arrays.
 
 Mirrors the reference's index load + reference restoration (reference:
 src/bwt_index.cpp:148-259): loads .bwt/.sa/.ann/.pac, rebuilds chromosome
 tables including the ChrLocMap boundary map, and decodes the packed genome
 into the fwd+revcomp ASCII text used by the conquer step.
 
-The TPU layout de-interleaves the .bwt payload into separate Occ-checkpoint
-and BWT-word arrays so device kernels gather rows instead of strided mixed
-records.
+The device layout de-interleaves the .bwt payload into separate
+Occ-checkpoint and BWT-word arrays so device kernels gather rows instead of
+strided mixed records.
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ class GenomeIndex:
         reference, bwt_index.cpp:194-228). No Ns: pac already randomized."""
         return CODE_TO_ASCII[self.ref_codes]
 
-    # ---- TPU-layout device arrays -----------------------------------------
+    # ---- device-layout arrays ---------------------------------------------
 
     @property
     def index_dtype(self):

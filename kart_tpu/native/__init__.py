@@ -4,14 +4,21 @@ The offline index builder uses a C++ SA-IS suffix-array routine (sais.cpp),
 compiled on demand with g++ into a shared object and loaded via ctypes.
 A pure-NumPy prefix-doubling fallback keeps everything functional when no
 C++ toolchain is available (slower, same results).
+
+Every shared object is named by `build_key`: a hash of its source, the
+compiler command and the host CPU.  A library is therefore reused only by
+the machine that built it from the same source with the same flags, and a
+checkout copied to another machine (or with an edited source) rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
-import tempfile
+import sys
 
 import numpy as np
 
@@ -21,20 +28,56 @@ _LIB = None
 _LIB_TRIED = False
 
 
-def _compile_lib() -> str | None:
-    src = os.path.join(_NATIVE_DIR, "sais.cpp")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, "libkartsais.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
-    tmp = tempfile.mktemp(suffix=".so", dir=_BUILD_DIR)
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", src, "-o", tmp]
+def host_cpu_signature() -> str:
+    """What -march=native compiles for: the CPU model and its feature
+    flags (first processor of /proc/cpuinfo), else the platform's name."""
+    fields = {}
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, out)
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # end of the first processor's block
+                k, _, v = line.partition(":")
+                fields[k.strip()] = v.strip()
+    except OSError:
+        pass
+    keys = ("vendor_id", "model name", "flags", "Features", "CPU part")
+    sig = "|".join(fields.get(k, "") for k in keys)
+    return f"{platform.machine()}|{sig or platform.processor()}"
+
+
+def build_key(src: str, cmd: list[str], cpu: str | None = None) -> str:
+    """16-hex-digit key of (source bytes, compiler command, host CPU)."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(cmd).encode())
+    h.update((host_cpu_signature() if cpu is None else cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def build_shared(src: str, name: str, flags: list[str], libs: list[str] = ()) -> str | None:
+    """Compile `src` into _build/lib<name>-<key>.so unless that exact build
+    exists; returns its path, or None (after reporting the compiler's
+    error on stderr) when the build fails."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    cmd = ["g++", *flags, "-shared", "-fPIC"]
+    out = os.path.join(_BUILD_DIR, f"lib{name}-{build_key(src, cmd + list(libs))}.so")
+    if os.path.exists(out):
         return out
-    except (subprocess.CalledProcessError, FileNotFoundError):
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(cmd + [src, "-o", tmp, *libs], check=True, capture_output=True)
+    except FileNotFoundError:
+        print(f"kart-tpu: cannot build {name}: g++ not found", file=sys.stderr)
         return None
+    except subprocess.CalledProcessError as e:
+        err = e.stderr.decode(errors="replace").strip().splitlines()
+        print(f"kart-tpu: building {name} failed:\n" + "\n".join(err[-20:]),
+              file=sys.stderr)
+        return None
+    os.replace(tmp, out)
+    return out
 
 
 def _load_lib():
@@ -42,7 +85,8 @@ def _load_lib():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    path = _compile_lib()
+    path = build_shared(os.path.join(_NATIVE_DIR, "sais.cpp"), "kartsais",
+                        ["-O3", "-std=c++17"])
     if path is None:
         return None
     lib = ctypes.CDLL(path)

@@ -1,6 +1,6 @@
 // kart_post.cpp — native post-seeding pipeline for kart-tpu.
 //
-// Everything downstream of the TPU seeding kernels: candidate clustering,
+// Everything downstream of the device seeding kernels: candidate clustering,
 // paired-end pairing + rescue, the divide (seed filters + normal-pair
 // synthesis) and conquer (8-mer repartition + Needleman-Wunsch) steps,
 // report/CIGAR/coordinate generation, SAM flags/MAPQ and record text.
@@ -157,7 +157,7 @@ struct TableInit {
 // ---------------------------------------------------------------------------
 
 
-// Direct 13-mer lookup seeding tables (same structure as the TPU engine in
+// Direct 13-mer lookup seeding tables (same structure as the device engine in
 // kart_tpu/ops/kmer_seed.py; see its docstring for the exactness argument).
 struct SeedTables {
   const int32_t* table_lo = nullptr;  // 4^13 + 1 entries
@@ -3549,7 +3549,7 @@ int64_t kart_process_chunk(void* vctx, int32_t n_reads, int32_t pair_end,
 }
 
 // Device-seeded chunk: seeds arrive as the packed (B, 1+4*max_seeds) int32
-// matrix produced by the TPU seeding kernels (seed_scan layout:
+// matrix produced by the device seeding kernels (seed_scan layout:
 // [n_seeds | rpos | len | k0 | freq] with k0 a suffix-array row).  The
 // occurrence expansion (gpos = sa_full[k0+o], o < freq, SA-row order —
 // reference bwt_search.cpp:176-179) happens here, off the device, against

@@ -4,37 +4,24 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import tempfile
 
 import numpy as np
 
+from . import build_shared
+
 _NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
-_BUILD_DIR = os.path.join(_NATIVE_DIR, "_build")
 _LIB = None
 _LIB_TRIED = False
 
 
 def _compile_lib() -> str | None:
-    src = os.path.join(_NATIVE_DIR, "kart_post.cpp")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, "libkartpost.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
-    tmp = os.path.join(_BUILD_DIR, "libkartpost.build.so")
-    # plain -O3: a PGO build was A/B-tested in round 4 (same-window
-    # alternating pairs) and measured NEUTRAL on Illumina (0.97x) and
-    # HARMFUL on PacBio (0.85x) with the current code — the r2-era profile
-    # win did not survive the binary-extension/SIMD rework, so the profile
-    # machinery was removed rather than shipped stale
-    cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-pthread", src, "-o", tmp, "-lz"]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, out)
-        return out
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return None
+    # plain -O3 -march=native: a PGO build was A/B-tested and measured
+    # neutral on Illumina and harmful on PacBio, so the profile machinery
+    # was removed.  -march=native is why the build key covers the host CPU.
+    return build_shared(
+        os.path.join(_NATIVE_DIR, "kart_post.cpp"), "kartpost",
+        ["-O3", "-march=native", "-std=c++17", "-pthread"], ["-lz"],
+    )
 
 
 def load_postlib():

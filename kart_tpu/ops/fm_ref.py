@@ -2,7 +2,7 @@
 
 This is the executable spec of the reference's backward-search semantics
 (reference: src/bwt_search.cpp:44-184) used by unit tests to validate the
-batched TPU kernels, and as a slow fallback path.  All arithmetic mirrors
+batched device kernels, and as a slow fallback path.  All arithmetic mirrors
 the reference exactly, including the primary-row adjustment and the
 complement-interval bookkeeping of BWT_Search.
 """

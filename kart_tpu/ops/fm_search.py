@@ -1,4 +1,4 @@
-"""Batched FM-index search kernels (JAX, TPU-first).
+"""Batched FM-index search kernels (JAX).
 
 These are the two hot loops of the aligner (reference: src/bwt_search.cpp):
 
@@ -11,7 +11,7 @@ These are the two hot loops of the aligner (reference: src/bwt_search.cpp):
    block (start, length, SA-interval start, freq) is recorded and the scan
    re-seeds at the next position.  This turns the reference's per-read
    while-loop into a fixed-trip-count batched loop with no data-dependent
-   control flow, which is what XLA/TPU wants.
+   control flow, which XLA compiles to one loop of batched steps.
 
 2. `sa_walk` — batched suffix-array resolution (bwt_sa, src/bwt_search.cpp:
    128-138): up to sa_intv-1 masked inverse-Psi steps per occurrence.
@@ -36,14 +36,11 @@ OCC_THR = 50
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class FMIndexArrays:
-    """Device-resident FM-index (TPU layout: de-interleaved Occ/BWT).
+    """Device-resident FM-index (de-interleaved Occ/BWT layout).
 
-    occ_cp and bwt_words are stored FLAT (1D): a (n_blocks, 4) int64 array
-    would be tile-padded to (8, 128) on TPU HBM — a 32x blowup that puts a
-    human-scale index (17 GB of padding for 550 MB of data) out of HBM
-    reach, and every lookup would drag a full 128-lane row through the
-    memory system to use 4 values.  Flat arrays gather exactly the 4 Occ
-    counts / 8 BWT words a lookup touches."""
+    occ_cp and bwt_words are stored FLAT (1D), de-interleaved from the
+    reference's .bwt payload: a lookup gathers exactly the 4 Occ counts /
+    8 BWT words of its block, by flat index, with no padding."""
 
     occ_cp: jax.Array  # (n_blocks * 4,) i32/i64 — checkpoint counts, row-major
     bwt_words: jax.Array  # (n_blocks * 8,) uint32 — BWT words, row-major
@@ -450,6 +447,6 @@ def sa_walk(fm: FMIndexArrays, ks, sa_intv_log2=np.int32(5), *, max_steps=4096):
 @jax.jit
 def sa_resolve_full(sa_full, ks):
     """Full-SA resolution: one gather. `sa_full[(k)] == bwt_sa(k)` for every
-    row k >= 1 (for genomes whose full int32 SA fits in HBM this removes the
-    invPsi walk entirely — the TPU-native fast path)."""
+    row k >= 1 (for genomes whose full int32 SA fits in device memory this
+    removes the invPsi walk entirely — the fast path)."""
     return sa_full[ks]

@@ -1,23 +1,29 @@
-"""Batched Needleman-Wunsch Pallas TPU kernel (the conquer-step hot op).
+"""Batched Needleman-Wunsch in plain JAX (the conquer-step DP, off the hot path).
 
 The reference closes every "normal pair" (avg ~20 bp gapped fragment) with
 a full O(mn) 3-matrix float DP (reference: src/nw_alignment.cpp:18-80).
-This kernel runs that DP for a whole batch of fragment pairs at once:
+This module runs that DP for a whole batch of fragment pairs at once as an
+antidiagonal wavefront: the state is six (N, lm+1) float32 vectors (r, t, s
+on the two previous diagonals), row i of diagonal d holding cell (i, d-i),
+and one `lax.scan` step computes a whole diagonal for every pair.
 
-  * lane-major layout: the DP planes are (Lp, Lp, N) with the batch in the
-    128-wide lane dimension, so every antidiagonal update is an (Lp, Lp)
-    masked elementwise op vectorized across 128 fragment pairs on the VPU;
-  * float32 adds/maxes in the exact reference order, so scores (and the
-    equality ties the backtrace keys on) are bit-identical to the host
-    numpy implementation (pipeline/conquer.py) and the reference's C float
-    arithmetic;
-  * the kernel emits backtrace decision bitplanes (bit0: s==r, bit1: s==t
-    at each cell) — the sequential, data-dependent backtrace walk stays on
-    the host (nw_backtrace), exactly mirroring the reference's tie-break
-    order (r first, then t — nw_alignment.cpp:61-68).
+Exactness: the DP is float32 add/max only, in the reference order
+(nw_alignment.cpp:47-60).  The only products are by 0/1 (substitution
+score) and by exact halves (gap ramps), so every value is exactly
+representable and no compiler reordering or fusion (FMA included) can
+change a bit.  Scores, the equality ties the backtrace keys on, and hence
+the alignments are bit-identical to the host numpy DP
+(pipeline/conquer.py::nw_alignment) on any backend, with no tolerance.
 
-Fragments longer than the tile (reference keeps them <= ~30 bp by 8-mer
-repartition; PacBio recursion keeps them <= 300) pick the next tile size.
+The device emits backtrace decision bits (bit0: s==r, bit1: s==t at each
+cell); the sequential, data-dependent backtrace walk stays on the host
+(nw_backtrace), mirroring the reference's tie-break order (r first, then
+t — nw_alignment.cpp:61-68).
+
+Production conquer is the native AVX2 NW (native/kart_post.cpp); this batch
+form is reached only by `-backend python` with KART_BATCH_NW=1.  Fragments
+longer than the largest tile (the 8-mer repartition keeps Illumina
+fragments ~20 bp; PacBio recursion keeps them <= ~300) run the host DP.
 """
 
 from __future__ import annotations
@@ -27,268 +33,80 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 MAX_PENALTY = np.float32(-65536)
 OPEN_GAP = np.float32(-1)
 EXTEND_GAP = np.float32(-0.5)
 NEW_GAP = np.float32(-1.5)
 
-LANES = 128  # fragment pairs per grid step (VPU lane width)
-
-# Plane-form tiles are 16/32 only: the divide step keeps normal pairs
-# ~20bp (reference README; repartition re-splits anything larger), so these
-# are the hot sizes.  The plane kernel keeps ~30 live (lm+1, lm+1, 128)
-# planes (Mosaic pads the lane dim to 128 regardless of the logical batch),
-# which exceeds the 16MB VMEM budget at lm >= 64 — those sizes (PacBio
-# conquer recursion leaves fragments up to ~300bp, tools.cpp:197) run the
-# wavefront kernel below instead, whose live state is O(lm+1) vectors.
-_TILE_LANES = {16: 128, 32: 128}
-# wavefront tiles: the (2lm+1, lm+1, 128) uint8 decision output must fit
-# VMEM alongside the vector state — 1.1MB at 64, 4.3MB at 128; 256 would
-# need 17MB, so 129+ stays on the host DP (a rare tail: PacBio recursion
-# splits anything >300 and the 8-mer repartition keeps Illumina tiny)
-_WAVE_TILES = (64, 128)
+_TILES = (16, 32, 64, 128)  # beyond the largest: host DP
 
 
-def _nw_kernel(c1_ref, c2_ref, eq_ref, *, lm: int):
-    """One grid step: LANES fragment pairs, tile (lm x lm).
-
-    c1_ref, c2_ref: (lm, LANES) int8 codes (4 = padding; padding never
-    equals anything since both sides padded 4 vs 5).
-    eq_ref: (lm+1, lm+1, LANES) uint8 out, bit0 = (s==r), bit1 = (s==t).
-    """
-    lp = lm + 1
-    c1 = c1_ref[:]  # (lm, N)
-    c2 = c2_ref[:]
-    n = c1.shape[1]
-
-    # substitution plane for cells (i>=1, j>=1): s1[i-1] vs s2[j-1].
-    # Plain code equality: the reference compares nst_nt4 codes (N == N
-    # matches); callers remap real ambiguous bases to a shared code and
-    # pad the two sides with DIFFERENT codes so padding never matches.
-    # All masks are materialized at full (lp, lp, n) shape, and the match
-    # plane is computed arithmetically (|c1-c2| clamped to {0,1}): an i1
-    # comparison of two differently-replicated broadcast layouts trips a
-    # Mosaic relayout bug ("non-singleton logical dimension is replicated").
-    c1i = c1.astype(jnp.int32)
-    c2i = c2.astype(jnp.int32)
-    diff = c1i[:, None, :] - c2i[None, :, :]  # (lm, lm, N) i32
-    nz = jnp.minimum(jnp.abs(diff), 1).astype(jnp.float32)  # 0 = match
-    sub = jnp.float32(1.5) - jnp.float32(3.0) * nz
-    sub = jnp.pad(sub, ((1, 0), (1, 0), (0, 0)))  # align to (i, j) planes
-
-    ii = jax.lax.broadcasted_iota(jnp.int32, (lp, lp, n), 0)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (lp, lp, n), 1)
-
-    # boundary init (nw_alignment.cpp:36-46)
-    col0 = jj == 0
-    row0 = ii == 0
-    gap_i = OPEN_GAP + ii.astype(jnp.float32) * EXTEND_GAP
-    gap_j = OPEN_GAP + jj.astype(jnp.float32) * EXTEND_GAP
-    origin = row0 & col0
-    r = jnp.where(row0, gap_j, MAX_PENALTY)
-    t = jnp.where(col0, gap_i, MAX_PENALTY)
-    s = jnp.where(col0, gap_i, jnp.where(row0, gap_j, 0))
-    r = jnp.where(origin, 0.0, r)
-    t = jnp.where(origin, 0.0, t)
-    s = jnp.where(origin, 0.0, s)
-
-    interior = (ii >= 1) & (jj >= 1)
-    dsum = ii + jj
-
-    def diag_step(d, carry):
-        r, t, s = carry
-        on_diag = interior & (dsum == d)
-        r_left = pltpu.roll(r, 1, axis=1)  # r[i, j-1] at (i, j)
-        s_left = pltpu.roll(s, 1, axis=1)
-        t_up = pltpu.roll(t, 1, axis=0)  # t[i-1, j]
-        s_up = pltpu.roll(s, 1, axis=0)
-        s_diag = pltpu.roll(pltpu.roll(s, 1, axis=0), 1, axis=1)
-        rv = jnp.maximum(r_left + EXTEND_GAP, s_left + NEW_GAP)
-        tv = jnp.maximum(t_up + EXTEND_GAP, s_up + NEW_GAP)
-        # reference: max(diag, rv, tv) evaluated as max(max-of-two chain);
-        # all f32, order-insensitive for max
-        sv = jnp.maximum(jnp.maximum(s_diag + sub, rv), tv)
-        r = jnp.where(on_diag, rv, r)
-        t = jnp.where(on_diag, tv, t)
-        s = jnp.where(on_diag, sv, s)
-        return (r, t, s)
-
-    r, t, s = jax.lax.fori_loop(2, 2 * lm + 1, diag_step, (r, t, s))
-
-    # pack the two decision bits in int32 (int8 shifts don't legalize in
-    # Mosaic), then narrow for the output
-    eq = (s == r).astype(jnp.int32) + 2 * (s == t).astype(jnp.int32)
-    # boundary rows/cols never tie-break through these bits in the walk's
-    # interior; the walk handles i==0 / j==0 explicitly
-    eq_ref[:] = eq.astype(jnp.uint8)
-
-
-@functools.partial(jax.jit, static_argnames=("lm", "interpret"))
-def nw_batch_planes(c1, c2, *, lm: int, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=("lm",))
+def nw_batch_planes(c1, c2, *, lm: int):
     """DP decision bitplanes for a batch of fragment pairs.
 
-    c1, c2: (N, lm) int8 2-bit codes padded with 4 / 5 (pads must differ so
-    padding never matches).  Returns (N, lm+1, lm+1) uint8 bitplanes.
-    """
+    c1, c2: (N, lm) int8 codes padded with 4 / 5 (pads differ so padding
+    never matches).  Returns (N, lm+1, lm+1) uint8, bit0 = (s==r) and
+    bit1 = (s==t) at cell (i, j)."""
     n = c1.shape[0]
-    lanes = _TILE_LANES[lm]
-    n_pad = -(-n // lanes) * lanes
-    c1p = jnp.pad(c1, ((0, n_pad - n), (0, 0)), constant_values=4).T  # (lm, Np)
-    c2p = jnp.pad(c2, ((0, n_pad - n), (0, 0)), constant_values=5).T
     lp = lm + 1
+    iv = jnp.arange(lp, dtype=jnp.int32)[None, :]  # vector row = i
+    # c1g[:, i] = s1[i-1] (row 0 is padding).  s2 reversed and padded by lm
+    # on the left: the window starting at 2lm-d puts s2[d-i-1] at row i.
+    c1g = jnp.pad(c1.astype(jnp.int32), ((0, 0), (1, 0)), constant_values=4)
+    c2r = jnp.pad(c2.astype(jnp.int32)[:, ::-1], ((0, 0), (lm, lp)),
+                  constant_values=5)
+    maxp = jnp.full((n, lp), MAX_PENALTY, jnp.float32)
 
-    grid = (n_pad // lanes,)
-    eq = pl.pallas_call(
-        functools.partial(_nw_kernel, lm=lm),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((lm, lanes), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((lm, lanes), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (lp, lp, lanes), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((lp, lp, n_pad), jnp.uint8),
-        interpret=interpret,
-    )(c1p, c2p)
-    return jnp.transpose(eq, (2, 0, 1))[:n]
-
-
-def _nw_kernel_wave(c1_ref, c2_ref, eq_ref, *, lm: int):
-    """Antidiagonal-wavefront NW: same DP as _nw_kernel but the live state
-    is six (lm+1, LANES) float32 antidiagonal vectors instead of
-    (lm+1, lm+1, LANES) planes, so 64/128-length tiles fit VMEM.
-
-    Decision bits are stored DIAGONAL-major: eq_ref is (2lm+1, lm+1, N)
-    uint8 with eq_ref[d, i] = bits of cell (i, j=d-i); the host reindexes
-    to (i, j) planes (nw_batch_planes_wave).  Arithmetic is the exact
-    reference order (nw_alignment.cpp:47-60), so the bits — and therefore
-    the backtrace — are bit-identical to the plane kernel and the host DP.
-    """
-    # the driver pre-arranges both inputs to (lpad, N) — lm+1 rows padded
-    # up to a multiple of 8 sublanes (Mosaic's dynamic rotate requires
-    # aligned shapes): c1g row i holds the code of s1[i-1] (row 0 padding),
-    # c2rev row k holds s2[lm-1-k] (Mosaic has no in-kernel `rev`; a
-    # dynamic roll by d - lm then puts s2[d-i-1] at row i).  Rows > lm are
-    # padding: no valid cell reads them (static rolls shift downward only,
-    # and valid rows never wrap through the dynamic rotate).
-    c1g = c1_ref[:].astype(jnp.int32)  # (lpad, N)
-    c2rev = c2_ref[:].astype(jnp.int32)
-    lpad, n = c1g.shape
-
-    iv = jax.lax.broadcasted_iota(jnp.int32, (lpad, n), 0)  # vector row = i
-    # derive the constant planes from the INPUT (not an iota/constant): the
-    # fori_loop carry must start lane-varying, or Mosaic infers a
-    # lane-replicated carry layout that the body's concrete results cannot
-    # legally relayout into ("replicated in destination but not in source")
-    zf = c1g.astype(jnp.float32) * 0
-    maxp = zf + MAX_PENALTY
+    def gap(d):
+        return OPEN_GAP + d.astype(jnp.float32) * EXTEND_GAP
 
     def boundary(d, R, T, S):
-        """Overwrite the two boundary lanes of diagonal d (cells (0, d) and
-        (d, 0)) with the plane kernel's init values (nw_alignment.cpp:36-46);
-        lanes beyond the matrix are left as-is (never read by valid cells).
-        All scalars are materialized at full (lpad, n) shape: mixing
-        replicated broadcasts into select_n trips a Mosaic relayout bug."""
-        dv = iv * 0 + d  # full-shape diagonal index
-        gdv = maxp * 0 + (OPEN_GAP + d.astype(jnp.float32) * EXTEND_GAP)
-        bj = (iv == 0) & (dv <= lm)  # top row cell (0, d)
-        bi = iv == dv  # left col cell (d, 0); iv <= lm bounds it
-        R = jnp.where(bj, gdv, jnp.where(bi, maxp, R))
-        T = jnp.where(bi, gdv, jnp.where(bj, maxp, T))
-        S = jnp.where(bj | bi, gdv, S)
+        """Boundary cells (0, d) and (d, 0) (nw_alignment.cpp:36-46)."""
+        top = (iv == 0) & (d <= lm)
+        left = iv == d
+        g = gap(d)
+        R = jnp.where(top, g, jnp.where(left, MAX_PENALTY, R))
+        T = jnp.where(left, g, jnp.where(top, MAX_PENALTY, T))
+        S = jnp.where(top | left, g, S)
         return R, T, S
 
-    def bits_of(R, T, S):
-        return ((S == R).astype(jnp.int32) + 2 * (S == T).astype(jnp.int32)).astype(
-            jnp.uint8
-        )
+    def bits(R, T, S):
+        return ((S == R).astype(jnp.uint8) | ((S == T).astype(jnp.uint8) << 1))
 
-    # d = 0: only the origin (0,0) with r = t = s = 0
-    at0 = iv == 0
-    R0 = jnp.where(at0, zf, maxp)
-    T0 = jnp.where(at0, zf, maxp)
-    S0 = jnp.where(at0, zf, maxp)
-    eq_ref[0] = bits_of(R0, T0, S0)
-    # d = 1: boundary cells only
+    def shift_down(x):  # row i reads row i-1 (cell (i-1, .) of that diagonal)
+        return jnp.concatenate([maxp[:, :1], x[:, :-1]], axis=1)
+
+    # d = 0: the origin, r = t = s = 0; d = 1: boundary cells only
+    R0 = T0 = S0 = jnp.where(iv == 0, jnp.float32(0), maxp)
     R1, T1, S1 = boundary(jnp.int32(1), maxp, maxp, maxp)
-    eq_ref[1] = bits_of(R1, T1, S1)
 
-    def step(d, carry):
-        Rpp, Tpp, Spp, Rp, Tp, Sp = carry
-        d = jnp.asarray(d).astype(jnp.int32)
-        # substitution term for cell (i, d-i): s1[i-1] vs s2[d-i-1].
-        # The rotate amount is normalized to [0, lpad): hardware dynamic
-        # rotates treat the amount as unsigned, so a negative d - lm
-        # (early diagonals) would rotate by garbage on the real chip
-        # (interpret mode forgives it).
-        lpad_i = jnp.int32(c2rev.shape[0])
-        c2g = pltpu.roll(c2rev, (d - lm) % lpad_i, axis=0)
-        nz = jnp.minimum(jnp.abs(c1g - c2g), 1).astype(jnp.float32)
-        sub = jnp.float32(1.5) - jnp.float32(3.0) * nz
+    def step(carry, d):
+        Spp, Rp, Tp, Sp = carry
+        c2g = jax.lax.dynamic_slice_in_dim(c2r, 2 * lm - d, lp, axis=1)
+        sub = jnp.where(c1g == c2g, jnp.float32(1.5), jnp.float32(-1.5))
+        rv = jnp.maximum(Rp + EXTEND_GAP, Sp + NEW_GAP)  # from (i, j-1)
+        tv = jnp.maximum(shift_down(Tp) + EXTEND_GAP, shift_down(Sp) + NEW_GAP)
+        sv = jnp.maximum(jnp.maximum(shift_down(Spp) + sub, rv), tv)
+        interior = (iv >= 1) & (iv <= d - 1) & (d - iv <= lm)
+        R, T, S = boundary(
+            d,
+            jnp.where(interior, rv, maxp),
+            jnp.where(interior, tv, maxp),
+            jnp.where(interior, sv, maxp),
+        )
+        return (Sp, R, T, S), bits(R, T, S)
 
-        r_left = Rp  # cell (i, j-1) lives at index i of diagonal d-1
-        s_left = Sp
-        t_up = pltpu.roll(Tp, 1, axis=0)  # cell (i-1, j): index i-1
-        s_up = pltpu.roll(Sp, 1, axis=0)
-        s_diag = pltpu.roll(Spp, 1, axis=0)  # cell (i-1, j-1): d-2, index i-1
-        rv = jnp.maximum(r_left + EXTEND_GAP, s_left + NEW_GAP)
-        tv = jnp.maximum(t_up + EXTEND_GAP, s_up + NEW_GAP)
-        sv = jnp.maximum(jnp.maximum(s_diag + sub, rv), tv)
-        dv = iv * 0 + d
-        interior = (iv >= 1) & (iv <= dv - 1) & (dv - iv <= lm)
-        R = jnp.where(interior, rv, maxp)
-        T = jnp.where(interior, tv, maxp)
-        S = jnp.where(interior, sv, maxp)
-        R, T, S = boundary(d, R, T, S)
-        eq_ref[pl.ds(d, 1)] = bits_of(R, T, S)[None]
-        return (Rp, Tp, Sp, R, T, S)
-
-    jax.lax.fori_loop(2, 2 * lm + 1, step, (R0, T0, S0, R1, T1, S1))
-
-
-@functools.partial(jax.jit, static_argnames=("lm", "interpret"))
-def _nw_wave_diag(c1, c2, *, lm: int, interpret: bool = False):
-    """Wavefront kernel driver: (N, lm) code pairs -> (N, 2lm+1, lm+1)
-    diagonal-major decision bits."""
-    n = c1.shape[0]
-    lanes = LANES
-    n_pad = -(-n // lanes) * lanes
-    lp = lm + 1
-    lpad = -(-lp // 8) * 8  # sublane-aligned vector rows (Mosaic rotate)
-    nd = 2 * lm + 1
-    c1p = jnp.pad(c1, ((0, n_pad - n), (0, 0)), constant_values=4).T  # (lm, Np)
-    c2p = jnp.pad(c2, ((0, n_pad - n), (0, 0)), constant_values=5).T
-    # pre-arrange for the kernel (no rev/pad primitives inside Mosaic):
-    # c1g[i] = s1[i-1]; c2rev[k] = s2[lm-1-k]; padding rows to lpad
-    c1g = jnp.pad(c1p, ((1, lpad - lp + 1), (0, 0)), constant_values=4)
-    c2rev = jnp.pad(c2p[::-1], ((0, lpad - lm), (0, 0)), constant_values=5)
-    eq = pl.pallas_call(
-        functools.partial(_nw_kernel_wave, lm=lm),
-        grid=(n_pad // lanes,),
-        in_specs=[
-            pl.BlockSpec((lpad, lanes), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((lpad, lanes), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (nd, lpad, lanes), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nd, lpad, n_pad), jnp.uint8),
-        interpret=interpret,
-    )(c1g, c2rev)
-    return jnp.transpose(eq, (2, 0, 1))[:n]
-
-
-def nw_batch_planes_wave(c1, c2, *, lm: int, interpret: bool = False) -> np.ndarray:
-    """(N, lm) code pairs -> (N, lm+1, lm+1) uint8 decision planes via the
-    wavefront kernel (diagonal-major on device, reindexed here)."""
-    diag = np.asarray(_nw_wave_diag(c1, c2, lm=lm, interpret=interpret))
-    lp = lm + 1
-    ii, jj = np.meshgrid(np.arange(lp), np.arange(lp), indexing="ij")
-    return diag[:, ii + jj, ii]
+    _, eq = jax.lax.scan(
+        step, (S0, R1, T1, S1), jnp.arange(2, 2 * lm + 1, dtype=jnp.int32)
+    )
+    diag = jnp.concatenate(
+        [bits(R0, T0, S0)[None], bits(R1, T1, S1)[None], eq], axis=0
+    )  # (2lm+1, N, lp): diag[d, :, i] = cell (i, d-i)
+    ii = np.arange(lp)[:, None]
+    jj = np.arange(lp)[None, :]
+    return jnp.transpose(diag[ii + jj, :, ii], (2, 0, 1))
 
 
 def nw_backtrace(eq: np.ndarray, s1: bytes, s2: bytes) -> tuple[bytes, bytes]:
@@ -319,13 +137,14 @@ def nw_backtrace(eq: np.ndarray, s1: bytes, s2: bytes) -> tuple[bytes, bytes]:
     return bytes(out1), bytes(out2)
 
 
-_TILES = (16, 32) + _WAVE_TILES  # beyond the largest: host DP
-
 # device-vs-host fragment coverage (observability; reset at will)
 nw_stats = {"device": 0, "host": 0}
 
 
-def _nw_tile_batch(pairs, lm, interpret):
+def encode_tile(pairs, lm):
+    """(s1, s2) ASCII pairs -> (N, lm) int8 code arrays padded 4 / 5.
+    The reference compares nst_nt4 codes (N == N matches), so real
+    ambiguous bases share code 6 and only padding differs per side."""
     from ..index.format import NT4_TABLE
 
     n = len(pairs)
@@ -334,33 +153,20 @@ def _nw_tile_batch(pairs, lm, interpret):
     for k, (a, b) in enumerate(pairs):
         c1[k, : len(a)] = NT4_TABLE[np.frombuffer(a, np.uint8)]
         c2[k, : len(b)] = NT4_TABLE[np.frombuffer(b, np.uint8)]
-        # ambiguous bases: reference compares nst_nt4 codes, N==N matches;
-        # keep code 4 distinct per side only for PADDING, so remap real
-        # ambiguous bases to a shared sentinel 6
         c1[k, : len(a)][c1[k, : len(a)] == 4] = 6
         c2[k, : len(b)][c2[k, : len(b)] == 4] = 6
-    if lm in _TILE_LANES:
-        eq = np.asarray(
-            nw_batch_planes(jnp.asarray(c1), jnp.asarray(c2), lm=lm, interpret=interpret)
-        )
-    else:
-        eq = nw_batch_planes_wave(
-            jnp.asarray(c1), jnp.asarray(c2), lm=lm, interpret=interpret
-        )
-    return [nw_backtrace(eq[k], a, b) for k, (a, b) in enumerate(pairs)]
+    return c1, c2
 
 
-def nw_align_batch(pairs: list[tuple[bytes, bytes]], *, interpret=None):
+def nw_align_batch(pairs: list[tuple[bytes, bytes]]):
     """Align a batch of (s1, s2) ASCII fragment pairs on the device;
     returns gapped (a1, a2) string pairs, each bit-identical to
     pipeline.conquer.nw_alignment(s1, s2).
 
     Pairs are grouped into size-bucketed tile batches; pairs exceeding the
     largest tile (possible only on degenerate PacBio fragments — callers
-    keep NW inputs small via 8-mer repartition / recursion) fall back to
-    the host DP."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    keep NW inputs small via 8-mer repartition / recursion) run the host
+    DP."""
     if not pairs:
         return []
     buckets: dict[int, list[int]] = {}
@@ -374,9 +180,11 @@ def nw_align_batch(pairs: list[tuple[bytes, bytes]], *, interpret=None):
             buckets.setdefault(t, []).append(k)
     out: list = [None] * len(pairs)
     for t, idxs in sorted(buckets.items()):
-        res = _nw_tile_batch([pairs[k] for k in idxs], t, interpret)
-        for k, r in zip(idxs, res):
-            out[k] = r
+        tile = [pairs[k] for k in idxs]
+        c1, c2 = encode_tile(tile, t)
+        eq = np.asarray(nw_batch_planes(jnp.asarray(c1), jnp.asarray(c2), lm=t))
+        for k, e, (a, b) in zip(idxs, eq, tile):
+            out[k] = nw_backtrace(e, a, b)
         nw_stats["device"] += len(idxs)
     from ..pipeline.conquer import nw_alignment
 

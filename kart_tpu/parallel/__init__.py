@@ -1,7 +1,7 @@
 """Parallelism: device meshes, sharded index, multi-host DP, ordered merge.
 
 The reference's only parallelism is pthreads over read chunks with a
-shared read-only index (SURVEY.md §2d); this package holds its TPU-native
+shared read-only index (SURVEY.md §2d); this package holds its JAX
 replacements: data parallelism along a mesh `data` axis, block-sharded
 FM-index lookups with psum over an `idx` axis (the tensor-parallel
 analogue for human-scale genomes), jax.distributed multi-host wiring, and

@@ -1,6 +1,6 @@
 """Multi-chip mapping step: data-parallel reads × (optionally) sharded index.
 
-This is the TPU equivalent of the reference's only parallelism — N pthreads
+This is the SPMD equivalent of the reference's only parallelism — N pthreads
 over read chunks with a shared read-only index (reference: src/Mapping.cpp:
 488-742) — recast as SPMD over a jax.sharding.Mesh:
 
@@ -8,7 +8,7 @@ over read chunks with a shared read-only index (reference: src/Mapping.cpp:
   * the FM-index is either replicated (small genomes — the per-thread
     shared-index model) or block-sharded along an `idx` axis (human-scale
     genomes), in which case every Occ/SA lookup is a masked local lookup +
-    psum over `idx` riding the ICI (see parallel.sharded_index);
+    psum over `idx` across the devices (see parallel.sharded_index);
   * the reference's mutex-guarded global counters (iTotalReadNum etc.,
     src/Mapping.cpp:20) become a psum over `data`.
 """

@@ -2,10 +2,10 @@
 
 The reference keeps one read-only index per process and shares it across
 pthreads (reference: src/Mapping.cpp:19, src/bwt_index.cpp:148).  For
-genomes whose Occ/BWT/SA arrays exceed a single chip's HBM (human scale),
+genomes whose Occ/BWT/SA arrays exceed a single device's memory (human scale),
 we instead shard the index block-wise across a mesh axis and answer every
 Occ/SA lookup with a masked local lookup + `psum` over that axis — the
-collective rides the ICI, exactly like a tensor-parallel matmul's
+collective crosses the device interconnect, exactly like a tensor-parallel matmul's
 reduce.  Reads stay data-parallel along the other mesh axis; the index
 axis sees the same query batch on every member (queries are replicated
 along `idx`), so each step costs one psum of the (B, 4) count block.
@@ -31,7 +31,7 @@ class ShardedFM:
     """FM-index arrays laid out for block-sharding along a mesh axis.
 
     Global shapes (before shard_map slices them) — occ/words FLAT 1D like
-    FMIndexArrays (a 2D (n, 4) array would be tile-padded 32x on TPU HBM):
+    FMIndexArrays:
       occ_cp     (n_shards*nb_local*4,)  i32/i64
       bwt_words  (n_shards*nb_local*8,)  uint32
       sa_full    (n_shards*ns_local,)    i32/i64  or None (frugal mode)

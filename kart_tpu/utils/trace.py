@@ -2,12 +2,12 @@
 
 The reference has no tracing beyond a wall-clock progress line
 (src/Mapping.cpp:509) and indexer phase timers (src/BWT_Index/
-bwtindex.c:93-145).  This module adds the TPU-era equivalents:
+bwtindex.c:93-145).  This module adds device-era equivalents:
 
   * StageTimers — lightweight named accumulators for the host pipeline
     stages (read / seed / post / emit), printed as a per-read breakdown;
   * device_trace — context manager around jax.profiler for capturing a
-    device trace viewable in XProf/TensorBoard (KART_TRACE_DIR or arg);
+    device trace viewable in TensorBoard/Perfetto (KART_TRACE_DIR or arg);
   * progress_line — the reference's \\r-rewritten progress reporter.
 
 Enable stage timing with KART_TIMERS=1; the native pipeline's own
@@ -59,7 +59,7 @@ class StageTimers:
 
 @contextlib.contextmanager
 def device_trace(trace_dir: str | None = None):
-    """Capture a jax device trace (XProf) for the enclosed block.  No-op
+    """Capture a jax device trace (jax.profiler) for the enclosed block.  No-op
     unless a directory is given or KART_TRACE_DIR is set."""
     trace_dir = trace_dir or os.environ.get("KART_TRACE_DIR")
     if not trace_dir:

@@ -161,8 +161,8 @@ def test_paired_end_device_seeding(golden):
 
 
 def test_paired_end_device_pipelined(golden, monkeypatch):
-    """KART_SEED_MODE=device: TPU seeds chunk k+1 while native post runs
-    chunk k (packed-seed handoff, occurrence expansion in C++)."""
+    """KART_SEED_MODE=device: the device seeds and resolves group k while
+    native post runs an earlier group (resolved-stream handoff)."""
     monkeypatch.setenv("KART_SEED_MODE", "device")
     args = ["-f", str(golden / "r1.fq"), "-f2", str(golden / "r2.fq")]
     run_both(golden, args, args, "pe_devpipe")
@@ -238,7 +238,7 @@ def test_paired_end_device_i64_resolver_shape(golden, monkeypatch):
 
 def test_paired_end_batched_device_nw(golden, monkeypatch):
     """Batched device conquer: per-chunk NW fragments collected and run as
-    one Pallas NW batch, report pass replays from the memo."""
+    one batched NW call (ops/nw.py), report pass replays from the memo."""
     monkeypatch.setenv("KART_BATCH_NW", "1")
     args = ["-f", str(golden / "r1.fq"), "-f2", str(golden / "r2.fq")]
     run_both(golden, args, args + ["-backend", "python"], "pe_batchnw")
@@ -269,7 +269,7 @@ def test_paired_end_device_cluster(golden, monkeypatch):
 
 def test_paired_end_full_device_stages(golden, monkeypatch):
     """All device stages at once: device seeding + clustering + pairing +
-    batched Pallas NW conquer, through the python pipeline."""
+    batched NW conquer, through the python pipeline."""
     monkeypatch.setenv("KART_DEVICE_CLUSTER", "1")
     monkeypatch.setenv("KART_DEVICE_PAIR", "1")
     monkeypatch.setenv("KART_BATCH_NW", "1")

@@ -1,4 +1,4 @@
-"""Pallas batched NW kernel vs the host reference DP (bit-exact)."""
+"""Batched plain-JAX NW (ops/nw.py) vs the host reference DP (bit-exact)."""
 
 import numpy as np
 import pytest
@@ -62,8 +62,8 @@ def test_nw_kernel_empty_batch():
 
 
 def test_nw_wavefront_tiles_match_host():
-    """64/128 wavefront tiles (PacBio conquer fragment sizes) bit-match the
-    host DP, including coverage accounting."""
+    """64/128 tiles (PacBio conquer fragment sizes) bit-match the host DP,
+    including coverage accounting."""
     from kart_tpu.ops.nw import nw_align_batch, nw_stats
 
     rng = np.random.default_rng(13)
